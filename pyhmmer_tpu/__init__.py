@@ -1,8 +1,8 @@
-"""pyhmmer_tpu — a TPU-native profile HMM search engine.
+"""pyhmmer_tpu — an accelerator-batched profile HMM search engine.
 
 A from-scratch reimplementation of the capability surface of
-`pyhmmer <https://github.com/althonos/pyhmmer>`_ (HMMER3) designed for
-TPU hardware: batched JAX DP kernels over [profiles x sequences],
+`pyhmmer <https://github.com/althonos/pyhmmer>`_ (HMMER3) built for a
+GPU: batched JAX DP kernels over [profiles x sequences],
 pjit/shard_map data parallelism over device meshes, and pure-Python
 bio I/O.  See SURVEY.md for the reference blueprint.
 """

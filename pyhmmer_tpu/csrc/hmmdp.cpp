@@ -1171,7 +1171,7 @@ double hmmdp_msv_quant(
 // envelope in unihit mode with null2 correction and an optimal-accuracy
 // alignment, and returns packed domain records + traces.  This is the
 // reference's C-side postprocessing (p7_domaindef.c, null2.c, optacc.c)
-// rebuilt for the TPU pipeline: the filters run batched on device, and
+// rebuilt for the batched pipeline: the filters run batched on device, and
 // only the rare survivors reach this host code.
 
 // Per-phase wall-time accumulators (seconds), indexed:
@@ -1261,48 +1261,6 @@ inline bool oa_close(T a, T b) {
                + 1e-5f;
     return std::fabs(a - b) < 1e-7 * std::max(1.0, std::fabs((double)b))
            + 1e-9;
-}
-
-//: device-rows domaindef calls that failed the audit prepass and fell
-//: back to the exact host parsers (diagnostic, read via
-//: hmmdp_marginal_count)
-std::atomic<int64_t> g_ext_marginal{0};
-
-// Control-flow replica of the region scan in hmmdp_domaindef, with no
-// side effects: returns true when ANY threshold comparison lands within
-// ``eps`` of flipping -- the f32 device rows could then produce
-// different regions than the exact f64 parsers, so the caller recomputes
-// exactly.  Must stay in lockstep with the real scan below.
-static bool audit_region_marginal(
-    const double* btot, const double* etot, const double* mocc,
-    int L, double rt1, double rt2, double rt3, double eps) {
-    int istart = -1;
-    bool triggered = false;
-    for (int jj = 1; jj <= L; jj++) {
-        if (!triggered) {
-            double d = mocc[jj] - (btot[jj] - btot[jj - 1]) - rt2;
-            if (std::fabs(d) < eps) return true;
-            if (d < 0.0) istart = jj;
-            else if (istart == -1) istart = jj;
-            if (std::fabs(mocc[jj] - rt1) < eps) return true;
-            if (mocc[jj] >= rt1) triggered = true;
-        } else {
-            double d = mocc[jj] - (etot[jj] - etot[jj - 1]) - rt2;
-            if (std::fabs(d) < eps) return true;
-            if (d < 0.0) {
-                const int ii = istart;
-                double expected_n = 0.0;
-                for (int z = ii; z <= jj; z++)
-                    expected_n = std::max(expected_n,
-                        std::min(etot[z] - etot[ii - 1],
-                                 btot[jj] - btot[z]));
-                if (std::fabs(expected_n - rt3) < eps) return true;
-                istart = -1;
-                triggered = false;
-            }
-        }
-    }
-    return false;
 }
 
 struct TraceBuf {
@@ -1513,20 +1471,10 @@ int32_t stotrace_odds(
 
 extern "C" {
 
-// Returns number of domains written, -1 if a buffer was too small
-// (caller falls back / retries), or -3 if device-provided rows were
-// threshold-marginal (caller retries without them).  out_scalars[6]:
+// Returns number of domains written, or -1 if a buffer was too small
+// (caller falls back / retries).  out_scalars[6]:
 //   [0]=fwdsc  [1]=nexpected  [2]=nregions  [3]=nclustered
 //   [4]=noverlaps  [5]=nenvelopes
-//
-// ``ext_rows`` (optional, may be NULL): device-computed region rows
-// [3 * (L+1)] = btot, etot, mocc (see ops/rows_pallas.py) with the
-// Forward score in ``ext_fwdsc``; when given, the full-sequence
-// Forward/Backward parsers and the special-state decode are SKIPPED
-// (they ran on the TPU) and every region-finding comparison is audited
-// against ``audit_eps`` -- a comparison landing within the epsilon of
-// its threshold returns -3 so the caller can redo the target with the
-// exact host parsers (the f32-prefilter + f64-recheck margin pattern).
 int32_t hmmdp_domaindef(
     const uint8_t* dsq, int32_t L,
     const double* tBM, const double* tMM, const double* tIM,
@@ -1548,9 +1496,7 @@ int32_t hmmdp_domaindef(
     int8_t* tr_st, int32_t* tr_k, int32_t* tr_i, double* tr_pp,
     int64_t* tr_off,                             // [max_dom + 1]
     int64_t max_tr,
-    const void* core_handle,                     // cached ExpCore or NULL
-    const double* ext_rows,                      // [3*(L+1)] or NULL
-    double ext_fwdsc, double audit_eps) {
+    const void* core_handle) {                   // cached ExpCore or NULL
 
     const int W = M + 1;
     Specials sm; sm.config(L, true);    // multihit, full-length model
@@ -1572,43 +1518,6 @@ int32_t hmmdp_domaindef(
     const double* etot;
     const double* mocc;
     double fwdsc;
-    bool used_ext = false;
-    if (ext_rows != nullptr) {
-        // device-resident parsers: the TPU already ran the full-L
-        // Forward/Backward and the special-state decode.  Two cheap
-        // prepasses decide whether the f32 rows can be trusted BEFORE
-        // any envelope work: (a) the F3 gate margin (the f32 device
-        // score must not decide a boundary gate), (b) a control-flow
-        // replica of the region scan asserting every threshold
-        // comparison is at least audit_eps away from flipping.  If
-        // either is marginal the exact host parsers run below, in this
-        // same call -- no second envelope pass, no extra round trip.
-        const double* bt = ext_rows;
-        const double* et = ext_rows + (L + 1);
-        const double* mo = ext_rows + 2 * (L + 1);
-        bool marginal = audit_eps > 0.0
-            && std::fabs(ext_fwdsc - fwd_min) < audit_eps * 50.0;
-        if (!marginal && ext_fwdsc < fwd_min) {
-            out_scalars[0] = ext_fwdsc;
-            out_scalars[1] = 0.0; out_scalars[2] = 0.0;
-            out_scalars[3] = 0.0;
-            out_scalars[4] = 0.0; out_scalars[5] = 0.0;
-            g_arena.release(call_mark);
-            delete local_core;
-            return 0;
-        }
-        if (!marginal)
-            marginal = audit_region_marginal(bt, et, mo, L, rt1, rt2,
-                                             rt3, audit_eps);
-        if (!marginal) {
-            fwdsc = ext_fwdsc;
-            btot = bt; etot = et; mocc = mo;
-            used_ext = true;
-        } else {
-            g_ext_marginal.fetch_add(1, std::memory_order_relaxed);
-        }
-    }
-    if (!used_ext) {
     // ---- full-sequence multihit Forward/Backward parsers ----
     // keep=3: specials stored LINEAR with per-row log scales -- avoids
     // 4-5 log() calls per row in each parser; the decode below pays one
@@ -1671,7 +1580,6 @@ int32_t hmmdp_domaindef(
     btot = btot_w; etot = etot_w; mocc = mocc_w;
 
     phase_add(2, now_s() - t_);
-    }
 
     int ndom = 0;
     int nregions = 0, nclustered = 0, noverlaps = 0, nenvelopes = 0;
@@ -2078,13 +1986,8 @@ int32_t hmmdp_domaindef(
     return fail ? -1 : ndom;
 }
 
-// ABI marker: present iff hmmdp_domaindef takes the ext_rows tail
-// (ops/native.py probes it so a stale .so forces a rebuild)
-int32_t hmmdp_has_ext_rows() { return 1; }
-
-int64_t hmmdp_marginal_count() {
-    return g_ext_marginal.load(std::memory_order_relaxed);
-}
+// ABI version: ops/native.py checks it so a stale .so forces a rebuild
+int32_t hmmdp_abi_version() { return 2; }
 
 // ---------------------------------------------------------------------------
 // FLogsum-table Forward (E-value calibration scorer)

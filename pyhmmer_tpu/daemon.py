@@ -8,10 +8,10 @@ followed by the serialized query terminated by ``\\n//``, and receives a
 of serialized ``P7_HIT`` records (``daemon.pyx:221-313``).
 
 This module implements the same client API **plus** the master-side server
-(the part the reference lacks), backed by the TPU search engine: a
+(the part the reference lacks), backed by the batched search engine: a
 `Server` loads target databases in RAM (the ``cachedb.c`` analog) and
 answers searches over TCP, so many lightweight clients can share a single
-TPU-accelerated search service.
+device-accelerated search service.
 
 Wire format note: the struct layouts follow the declarations in
 ``include/libhmmer/hmmpgmd.pxd`` (``HMMD_SEARCH_STATUS``,
@@ -23,21 +23,14 @@ cannot be verified here; client and server of *this* package are mutually
 compatible and round-trip tested.
 
 Example (in-process server, one search round trip):
-    >>> from pyhmmer_tpu import daemon
-    >>> from pyhmmer_tpu.plan7 import HMMFile
-    >>> from pyhmmer_tpu.easel import SequenceFile
-    >>> DATA = "/root/reference/src/pyhmmer/tests/data"
-    >>> with HMMFile(DATA + "/hmms/txt/PF02826.hmm") as f:
-    ...     hmm = f.read()
-    >>> with SequenceFile(DATA + "/seqs/938293.PRJEB85.HG003687.faa",
-    ...                   digital=True) as f:
-    ...     seqs = f.read_block(sequences=300)
+    >>> from pyhmmer_tpu import daemon, synthetic
+    >>> hmms, seqs = synthetic.doctest_workload()
     >>> server = daemon.Server(seqdbs=[seqs], port=0)
     >>> server.start()
     >>> with daemon.Client("127.0.0.1", server.port) as client:
-    ...     th = client.search_hmm(hmm)
+    ...     th = client.search_hmm(hmms[0])
     >>> len(th.reported)
-    2
+    12
     >>> server.shutdown()
 """
 
@@ -514,7 +507,7 @@ def _parse_options(tokens: List[str]):
 
 
 class Server:
-    """A TPU-engine-backed search daemon (the ``hmmpgmd`` master analog).
+    """A search daemon backed by the batched engine (the ``hmmpgmd`` master analog).
 
     Holds sequence databases (``seqdbs``: `DigitalSequenceBlock` items) and
     profile databases (``hmmdbs``: lists of `HMM`) cached in RAM like

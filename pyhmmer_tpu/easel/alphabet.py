@@ -1,7 +1,7 @@
 """Biosequence alphabets with Easel-compatible digital encoding.
 
-TPU-first design notes
-----------------------
+Batched-layout design notes
+---------------------------
 Digital sequences are plain ``uint8`` numpy arrays of *codes* (no sentinel
 bytes -- padding/masking is handled by explicit length vectors in the batched
 kernels).  The code layout matches Easel's (``esl_alphabet.c`` semantics,

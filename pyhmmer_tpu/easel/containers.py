@@ -3,7 +3,7 @@
 Mirrors ``pyhmmer.easel``'s ``Bitfield`` (``easel.pyx:721-1025``),
 ``KeyHash`` (``easel.pyx:1026-1303``), ``Vector``/``VectorD/F/I/U8``
 (``easel.pyx:1304-3228``) and ``Matrix``/``MatrixD/F/I/U8``
-(``easel.pyx:3229-4706``).  The TPU build backs every one with a NumPy
+(``easel.pyx:3229-4706``).  This package backs every one with a NumPy
 array (buffer protocol for free) instead of Easel's C structs.
 """
 

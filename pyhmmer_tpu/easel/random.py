@@ -43,7 +43,7 @@ class Randomness:
     @property
     def fast(self) -> bool:
         """`bool`: whether this is the "fast" linear congruential
-        generator (always `False`: the TPU build only ships MT)."""
+        generator (always `False`: this package only ships MT)."""
         return False
 
     def copy(self) -> "Randomness":

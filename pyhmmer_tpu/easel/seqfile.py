@@ -4,7 +4,7 @@ Mirrors ``pyhmmer.easel.SequenceFile`` (reference ``src/pyhmmer/easel.pyx:
 8850-9672``): format guessing, text/digital mode, ``read``/``read_block``
 with ``sequences``/``residues`` caps, ``rewind``, and a static ``parse``
 for in-memory buffers.  Pure Python -- file I/O is never the bottleneck for
-the TPU pipeline, which consumes packed blocks.
+the batched pipeline, which consumes packed blocks.
 """
 
 from __future__ import annotations
@@ -310,7 +310,7 @@ class SequenceFile:
     def readinto(self, seq) -> Optional[object]:
         """Read the next sequence into an existing ``Sequence`` object,
         returning it (or None at EOF) -- reference ``SequenceFile.readinto``
-        (``easel.pyx:8850-9672``).  The TPU build has no preallocated C
+        (``easel.pyx:8850-9672``).  This package has no preallocated C
         buffers, so this copies the parsed record's fields into ``seq``."""
         nxt = self.read()
         if nxt is None:

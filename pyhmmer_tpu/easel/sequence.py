@@ -2,7 +2,7 @@
 
 Mirrors ``pyhmmer.easel.Sequence``/``TextSequence``/``DigitalSequence`` and the
 ``SequenceBlock`` containers (reference ``src/pyhmmer/easel.pyx:7119-8816``),
-re-designed for the TPU batch layout: a ``DigitalSequenceBlock`` can emit a
+re-designed for the batched device layout: a ``DigitalSequenceBlock`` can emit a
 packed ``[B, Lmax]`` uint8 code matrix plus a length vector, which is the
 input format of every batched kernel.
 """
@@ -175,7 +175,7 @@ class DigitalSequence(Sequence):
     """A digitally-encoded sequence: uint8 codes, *no* sentinels.
 
     The reference stores Easel digital sequences with sentinel bytes at
-    ``[0]`` and ``[n+1]`` (see window copy ``plan7.pyx:7396-7397``); the TPU
+    ``[0]`` and ``[n+1]`` (see window copy ``plan7.pyx:7396-7397``); this
     layout instead keeps raw codes and tracks lengths explicitly.
     """
 
@@ -345,7 +345,7 @@ class DigitalSequenceBlock(SequenceBlock):
     """Block of digital sequences sharing an alphabet.
 
     Provides :meth:`packed` which produces the ``[B, Lmax]`` padded code
-    matrix + length vector layout the batched TPU kernels consume.
+    matrix + length vector layout the batched device kernels consume.
     """
 
     _item_type = DigitalSequence
@@ -380,7 +380,7 @@ class DigitalSequenceBlock(SequenceBlock):
         from .alphabet import AMINO
         return DigitalSequenceBlock(AMINO, (gc.translate_sequence(s) for s in self))
 
-    # --- TPU batch layout ---------------------------------------------------
+    # --- device batch layout ------------------------------------------------
 
     def packed(self, pad_to: int = 1, fill: Optional[int] = None):
         """Pack into ``(codes[B, Lmax], lengths[B])``.

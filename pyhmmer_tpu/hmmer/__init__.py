@@ -2,9 +2,9 @@
 
 Mirrors ``pyhmmer.hmmer`` (reference ``src/pyhmmer/hmmer/``):
 ``hmmsearch``, ``hmmscan``, ``phmmer``, ``jackhmmer``, ``hmmalign``,
-``hmmpress`` (``nhmmer`` pending the long-targets pipeline).
+``hmmpress`` and ``nhmmer``.
 
-TPU-first note: where the reference dispatches one query per CPU thread
+Device note: where the reference dispatches one query per CPU thread
 (``hmmer/_base.py:344-495``), these functions hand the whole query set to
 the batched :class:`~pyhmmer_tpu.engine.SearchEngine`, which stacks
 profiles and target buckets into device kernels.  The ``cpus`` argument
@@ -36,6 +36,17 @@ from ..plan7.tracealign import TraceAligner
 __all__ = ["hmmsearch", "hmmscan", "phmmer", "jackhmmer", "hmmalign",
            "hmmpress", "nhmmer"]
 
+#: ``backend`` values of :func:`hmmsearch` / :func:`hmmscan`: the batched
+#: device engine, or the sequential float64 oracle pipeline
+BACKENDS = ("device", "oracle")
+
+
+def _check_backend(backend: str) -> str:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of "
+                         f"{BACKENDS}")
+    return backend
+
 
 def _target_block(sequences, alphabet: Optional[Alphabet] = None
                   ) -> DigitalSequenceBlock:
@@ -60,8 +71,8 @@ def _query_list(queries):
 
 
 def hmmsearch(queries, sequences, *, cpus: int = 0, callback=None,
-              backend: str = "tpu", block_residues: Optional[int] = None,
-              **options) -> Iterator[TopHits]:
+              backend: str = "device", block_residues: Optional[int] = None,
+              engine=None, **options) -> Iterator[TopHits]:
     """Search HMM profile(s) against a sequence database
     (``pyhmmer.hmmsearch``, reference ``hmmer/_hmmsearch.py:294-436``).
 
@@ -73,26 +84,29 @@ def hmmsearch(queries, sequences, *, cpus: int = 0, callback=None,
     independent of database size, like the reference's streamed worker
     loop (``hmmer/_hmmsearch.py:81-90``).
 
+    A caller-provided ``engine`` (a :class:`~pyhmmer_tpu.engine.SearchEngine`
+    built with the pipeline options) keeps its configured-model and
+    target-bucket caches across calls, the serving pattern.
+
     Example:
-        >>> from pyhmmer_tpu.plan7 import HMMFile
-        >>> from pyhmmer_tpu.easel import SequenceFile
-        >>> DATA = "/root/reference/src/pyhmmer/tests/data"
-        >>> with HMMFile(DATA + "/hmms/txt/PF02826.hmm") as f:
-        ...     hmms = list(f)
-        >>> with SequenceFile(DATA + "/seqs/938293.PRJEB85.HG003687.faa",
-        ...                   digital=True) as f:
-        ...     targets = f.read_block(sequences=300)
+        >>> from pyhmmer_tpu import synthetic
+        >>> hmms, targets = synthetic.doctest_workload()
         >>> th = next(hmmsearch(hmms, targets))
-        >>> [h.name for h in th.reported]           # doctest: +ELLIPSIS
-        [b'938293.PRJEB85.HG00368...', b'938293.PRJEB85.HG00368...']
+        >>> oracle = next(hmmsearch(hmms, targets, backend="oracle"))
+        >>> [h.name for h in th.reported] == [h.name for h in oracle.reported]
+        True
+        >>> len(th.reported) > 0
+        True
     """
+    _check_backend(backend)
     queries = _query_list(queries)
     if not queries:
         return iter(())
     alphabet = queries[0].alphabet
     if isinstance(sequences, SequenceFile) and backend != "oracle":
         return _hmmsearch_streamed(queries, sequences, alphabet, callback,
-                                   block_residues or (1 << 24), options)
+                                   block_residues or (1 << 24), options,
+                                   engine)
     block = _target_block(sequences)
     if backend == "oracle":
         def gen():
@@ -104,20 +118,20 @@ def hmmsearch(queries, sequences, *, cpus: int = 0, callback=None,
                 yield th
         return gen()
     from ..engine import SearchEngine
-    eng = SearchEngine(alphabet, **options)
+    eng = engine or SearchEngine(alphabet, **options)
     results = eng.search(queries, block, callback=callback)
     return iter(results)
 
 
 def _hmmsearch_streamed(queries, seqfile: SequenceFile, alphabet,
-                        callback, block_residues: int, options):
+                        callback, block_residues: int, options, engine=None):
     """Blockwise hmmsearch over a streamed target file: one engine (the
     configured-model cache persists across blocks), one merge per query
     at the end (``TopHits.merge`` sums auto-Z accounting)."""
     if not seqfile.digital:
         raise ValueError("expected digital mode SequenceFile")
     from ..engine import SearchEngine
-    eng = SearchEngine(alphabet, **options)
+    eng = engine or SearchEngine(alphabet, **options)
     partials = None
     while True:
         block = seqfile.read_block(residues=block_residues)
@@ -150,14 +164,9 @@ def hmmscan(queries, profiles, *, cpus: int = 0, callback=None,
     E-values use Z = number of profiles (``plan7.pyx:5211-5215``).
 
     Example:
-        >>> from pyhmmer_tpu.plan7 import HMMFile
-        >>> from pyhmmer_tpu.easel import SequenceFile
-        >>> DATA = "/root/reference/src/pyhmmer/tests/data"
-        >>> with HMMFile(DATA + "/hmms/txt/RREFam.hmm") as f:
-        ...     models = list(f)
-        >>> with SequenceFile(DATA + "/seqs/938293.PRJEB85.HG003687.faa",
-        ...                   digital=True) as f:
-        ...     seqs = f.read_block(sequences=8)
+        >>> from pyhmmer_tpu import synthetic
+        >>> models, targets = synthetic.doctest_workload()
+        >>> seqs = targets[:8]
         >>> results = list(hmmscan(seqs, models))
         >>> len(results) == len(seqs)
         True
@@ -192,7 +201,7 @@ def hmmscan(queries, profiles, *, cpus: int = 0, callback=None,
         return iter(())
     alphabet = queries[0].alphabet
 
-    backend = options.pop("backend", "tpu")
+    backend = _check_backend(options.pop("backend", "device"))
     if backend != "oracle":
         # engine-backed scan: a scan is the transpose of a search (the
         # reference shares p7_Pipeline between the two; only Z differs,
@@ -319,11 +328,8 @@ def phmmer(queries, sequences, *, cpus: int = 0, callback=None,
     (``pyhmmer.phmmer``, reference ``hmmer/_phmmer.py:106-202``).
 
     Example:
-        >>> from pyhmmer_tpu.easel import SequenceFile
-        >>> DATA = "/root/reference/src/pyhmmer/tests/data"
-        >>> with SequenceFile(DATA + "/seqs/938293.PRJEB85.HG003687.faa",
-        ...                   digital=True) as f:
-        ...     seqs = f.read_block(sequences=30)
+        >>> from pyhmmer_tpu import synthetic
+        >>> _, seqs = synthetic.doctest_workload()
         >>> th = next(phmmer(seqs[0], seqs))
         >>> th.reported[0].name == seqs[0].name   # best hit = the query
         True

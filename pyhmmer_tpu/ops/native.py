@@ -20,6 +20,9 @@ _LIB = os.path.join(_HERE, "..", "csrc", "libhmmdp.so")
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+#: must equal hmmdp_abi_version() in csrc/hmmdp.cpp (bumped on every
+#: signature change so a stale binary forces a rebuild)
+_ABI_VERSION = 2
 
 _D = np.ctypeslib.ndpointer(dtype=np.float64, flags="C_CONTIGUOUS")
 _U8 = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")
@@ -53,14 +56,13 @@ def _build() -> bool:
 
 
 def _load_checked() -> ctypes.CDLL:
-    """Load the library and probe the newest ABI symbol so a stale
-    binary raises instead of failing later."""
+    """Load the library and check its ABI version so a stale binary
+    raises (AttributeError) instead of failing later."""
     lib = ctypes.CDLL(_LIB)
-    lib.hmmdp_viterbi
-    lib.hmmdp_core_new
-    lib.hmmdp_bias_filter_idx
-    lib.hmmdp_phase_get
-    lib.hmmdp_has_ext_rows   # newest ABI marker; AttributeError if stale
+    lib.hmmdp_abi_version.argtypes = []
+    lib.hmmdp_abi_version.restype = ctypes.c_int32
+    if lib.hmmdp_abi_version() != _ABI_VERSION:
+        raise AttributeError("stale native library")
     return lib
 
 
@@ -159,8 +161,6 @@ def get_lib() -> Optional[ctypes.CDLL]:
         _I8P, _I32P, _I32P, _D,             # trace arrays
         _I64PP, ctypes.c_int64,             # tr_off, max_tr
         ctypes.c_void_p,                    # cached ExpCore handle or NULL
-        ctypes.c_void_p,                    # ext_rows [3*(L+1)] or NULL
-        ctypes.c_double, ctypes.c_double,   # ext_fwdsc, audit_eps
     ]
     lib.hmmdp_domaindef.restype = ctypes.c_int32
     lib.hmmdp_core_new.argtypes = [_D, _D, _D, _D, _D, _D, _D, _D,
@@ -183,8 +183,6 @@ def get_lib() -> Optional[ctypes.CDLL]:
     lib.hmmdp_viterbi.restype = ctypes.c_double
     lib.hmmdp_phase_get.argtypes = [_D]
     lib.hmmdp_phase_get.restype = None
-    lib.hmmdp_marginal_count.argtypes = []
-    lib.hmmdp_marginal_count.restype = ctypes.c_int64
     lib.hmmdp_forward_flogsum.argtypes = [
         _U8, _I32,
         _D, _D, _D, _D, _D, _D, _D, _D,
@@ -480,16 +478,6 @@ def prewarm(prof) -> None:
 import threading as _threading
 
 
-def marginal_count() -> int:
-    """Device-rows domaindef calls that failed the audit prepass and
-    recomputed the exact host parsers inside the same native call
-    (diagnostic; cumulative per process)."""
-    lib = get_lib()
-    if lib is None:
-        return 0
-    return int(lib.hmmdp_marginal_count())
-
-
 _dd_tls = _threading.local()
 
 
@@ -519,9 +507,7 @@ def _dd_buffers(max_dom: int, max_tr: int) -> dict:
 
 def domaindef(prof_multi, dsq: np.ndarray, do_null2: bool, seed: int,
               nsamples: int = 200, rt1: float = 0.25, rt2: float = 0.10,
-              rt3: float = 0.20, fwd_min: float = -np.inf,
-              ext_rows: Optional[np.ndarray] = None,
-              ext_fwdsc: float = 0.0, audit_eps: float = 2e-4):
+              rt3: float = 0.20, fwd_min: float = -np.inf):
     """Full native domain definition for one Forward survivor.
 
     Runs the complete ``p7_domaindef_ByPosteriorHeuristics`` machinery in
@@ -531,16 +517,7 @@ def domaindef(prof_multi, dsq: np.ndarray, do_null2: bool, seed: int,
     unavailable or a buffer overflowed (caller falls back to Python).
     If the exact Forward score lands below ``fwd_min`` (the caller's
     F3-gate threshold in nats) the driver bails after Forward and returns
-    an empty result carrying only ``fwdsc``.
-
-    ``ext_rows`` [3, L+1] float64 (btot, etot, mocc) + ``ext_fwdsc``:
-    device-computed full-L parser rows (``ops.rows_pallas``); the native
-    side then skips its own parsers/decode, auditing every region
-    threshold comparison against ``audit_eps`` -- if any lands inside the
-    margin (f32 device rows could flip it) the call transparently reruns
-    with the exact host parsers.  Matches the reference's parser-kernel
-    split (``impl_sse/fwdback.c`` parser mode feeding
-    ``p7_domaindef.c``)."""
+    an empty result carrying only ``fwdsc``."""
     from ..plan7 import domaindef as dd
     lib = get_lib()
     if lib is None:
@@ -566,13 +543,6 @@ def domaindef(prof_multi, dsq: np.ndarray, do_null2: bool, seed: int,
     # the library is compiled -ffinite-math-only (reductions/max chains
     # vectorize); every float crossing the ABI must be finite
     fwd_min = float(np.clip(fwd_min, -1e300, 1e300))
-    ext_ptr, ext_sc = None, 0.0
-    if ext_rows is not None:
-        ext = np.ascontiguousarray(
-            np.clip(ext_rows, -1e300, 1e300), dtype=np.float64)
-        assert ext.shape == (3, L + 1), ext.shape
-        ext_ptr = ext.ctypes.data_as(ctypes.c_void_p)
-        ext_sc = float(np.clip(ext_fwdsc, -1e300, 1e300))
     ndom = lib.hmmdp_domaindef(
         dsq8, L,
         pt.tBM, pt.tMM, pt.tIM, pt.tDM, pt.tMD, pt.tDD, pt.tMI, pt.tII,
@@ -581,8 +551,7 @@ def domaindef(prof_multi, dsq: np.ndarray, do_null2: bool, seed: int,
         1 if do_null2 else 0, seed & 0x7FFFFFFFFFFFFFFF, nsamples,
         rt1, rt2, rt3, float(fwd_min),
         out_scalars, n2sc, dom_int, dom_dbl, max_dom,
-        tr_st, tr_k, tr_i, tr_pp, tr_off, max_tr, pt.core,
-        ext_ptr, ext_sc, float(audit_eps) if ext_ptr is not None else 0.0)
+        tr_st, tr_k, tr_i, tr_pp, tr_off, max_tr, pt.core)
     if ndom < 0:
         return None
     domains = []

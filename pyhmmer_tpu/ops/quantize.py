@@ -2,7 +2,7 @@
 
 The uint8 MSV quantization (``mf_conversion`` semantics: 1/3-bit units,
 base 190, bias = rounded max emission) must be bit-identical between the
-NumPy oracle and the batched TPU kernels, so both derive their tensors
+NumPy oracle and the batched device kernels, so both derive their tensors
 here.
 """
 

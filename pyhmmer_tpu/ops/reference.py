@@ -1,10 +1,10 @@
 """NumPy oracle implementations of the Plan7 dynamic programs.
 
-These are the *reference semantics* for the TPU kernels (the role the
+These are the *reference semantics* for the device kernels (the role the
 ``generic_*.c`` implementations play in HMMER -- see SURVEY.md §2.5).  All
 computations are float64 log-space with ``-inf`` represented as a large
 negative finite value (``NEGMASS``) so that no NaN special-casing is needed
--- the same convention the JAX/Pallas kernels use in float32.
+-- the same convention the JAX kernels use in float32.
 
 DP conventions (local multihit "implicit model"):
 

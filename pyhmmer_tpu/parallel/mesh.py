@@ -1,6 +1,6 @@
 """Multi-chip sharded search.
 
-The TPU-native analog of the reference's distribution mechanisms
+The device-parallel analog of the reference's distribution mechanisms
 (SURVEY.md §2.6): the ``_ReverseSEARCHDispatcher``'s residue-balanced
 target chunks become a *data*-sharded sequence batch; hmmscan's profile
 database sharding becomes a *model*-sharded profile stack; the hmmpgmd
@@ -91,7 +91,7 @@ class ShardedCascade:
         tjb_d = self._shard(tjb.astype(np.float32), P("data"))
 
         dx, ovf = B._msv_kernel(codes_d, mask_d, cost, bias, tec, tbm,
-                                tjb_d, pb.Kp)
+                                tjb_d)
         # cross-device reduction: number of passing pairs (replicated out)
         n_pass = int(jnp.sum((dx > 0) & ~ovf))
         usc = ((np.asarray(dx, np.float64)[:P_, :Breal]
@@ -133,8 +133,7 @@ class ShardedCascade:
             tr["tMD"], tr["tDD"], tr["tBM"], tr["tMI"], tr["tII"], kmask,
             np.float32(np.log(0.5)), np.float32(np.log(0.5)),
             self._shard(np.log(1.0 - pmove).astype(np.float32), P("data")),
-            self._shard(np.log(pmove).astype(np.float32), P("data")),
-            pb.Kp)
+            self._shard(np.log(pmove).astype(np.float32), P("data")))
         return np.asarray(out, np.float64)[:P_, :Breal]
 
 
@@ -166,7 +165,7 @@ def sharded_search(queries, targets, n_shards: Optional[int] = None,
     ``TopHits`` merged with the reference's contract (concatenate, sum
     auto-Z, re-threshold -- ``TopHits.merge``).
 
-    Shards run on one **thread per shard** (the TPU analog of the
+    Shards run on one **thread per shard** (the device analog of the
     reference's concurrent target-parallel workers,
     ``hmmer/_hmmsearch.py:115-289``): each engine's device dispatch is
     asynchronous and its blocking fetches plus the native domaindef pool

@@ -1,6 +1,6 @@
 """Multi-host (multi-process) distributed search runtime.
 
-The TPU-native analog of the reference's hmmpgmd master/worker service
+The multi-process analog of the reference's hmmpgmd master/worker service
 (``/root/reference/src/pyhmmer/daemon.pyx:64-592`` client; ``hmmdmstr.c``
 / ``hmmdwrkr.c`` / ``cachedb_shard.c`` server roles, SURVEY.md section 5
 distributed-comms contract): instead of a TCP master sharding a cached

@@ -12,7 +12,7 @@ Mirrors ``pyhmmer.plan7.Builder`` (reference ``src/pyhmmer/plan7.pyx:
 * E-value calibration by simulation (``p7_Lambda``/``p7_MSVMu``/
   ``p7_ViterbiMu``/``p7_Tau``): random background sequences are scored
   with the batched kernels and Gumbel/exponential-tail parameters fitted
-  on host -- embarrassingly parallel on TPU.
+  on host -- embarrassingly parallel on the device.
 """
 
 from __future__ import annotations
@@ -385,8 +385,8 @@ class Builder:
           ``tau = mu_tail + log(Eft) / lambda``.
 
         The random-sequence scoring is batched through the engine's
-        device kernels (``ops.batch``) -- on TPU the whole simulation is
-        a handful of kernel launches; reported mu/tau carry the usual
+        device kernels (``ops.batch``), a handful of kernel launches per
+        model; reported mu/tau carry the usual
         +-0.1..0.5-bit simulation sampling noise vs a reference
         hmmbuild run (different RNG streams; pinned by
         ``tests/test_calibration.py``)."""
@@ -429,7 +429,7 @@ class Builder:
             devv.codes, devv.mask_b,
             *pb.device("msc", "isc", "tMM", "tIM", "tDM", "tMD", "tDD",
                        "tBM", "tMI", "tII", "kmask"),
-            xEj, xEj, _jnp.zeros_like(devv.loop), devv.move, pb.Kp)
+            xEj, xEj, _jnp.zeros_like(devv.loop), devv.move)
         vit = (np.asarray(vout, np.float64)[0] - 3.0 - nullsc) / LOG2
         vmu = gumbel_fit_complete_loc(vit, lam)
 

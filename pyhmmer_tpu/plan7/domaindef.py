@@ -15,7 +15,7 @@ Re-implements the semantics of ``p7_domaindef_ByPosteriorHeuristics``
 3. Regions holding multiple domains are resolved by stochastic traceback
    clustering into separate envelopes, then each envelope is rescored.
 
-All DP here runs on the NumPy oracle (`ops.reference`); the batched TPU
+All DP here runs on the NumPy oracle (`ops.reference`); the batched device
 pipeline produces the same fwd/bck inputs on device.
 """
 

@@ -3,7 +3,7 @@
 Mirrors ``pyhmmer.plan7.HMM`` (reference ``src/pyhmmer/plan7.pyx:2235-3446``,
 struct ``include/libhmmer/p7_hmm.pxd:53-77``): probability-space model with
 ``(M+1) x 7`` transitions, ``(M+1) x K`` match/insert emissions, annotation
-lines, E-value parameters and score cutoffs.  NumPy-backed; the TPU profile
+lines, E-value parameters and score cutoffs.  NumPy-backed; the device profile
 tensors are derived in :mod:`pyhmmer_tpu.plan7.profile`.
 """
 

@@ -54,12 +54,20 @@ class HMMFile:
     ``.h3m``; see :meth:`optimized_profiles` for pressed databases.
 
     Example:
-        >>> DATA = "/root/reference/src/pyhmmer/tests/data"
-        >>> with HMMFile(DATA + "/hmms/txt/LuxC.hmm") as f:
+        >>> import os, tempfile
+        >>> from pyhmmer_tpu import hmmer, synthetic
+        >>> hmms, _ = synthetic.doctest_workload()
+        >>> path = os.path.join(tempfile.mkdtemp(), "synthetic.hmm")
+        >>> with open(path, "wb") as fh:
+        ...     for h in hmms:
+        ...         h.write(fh)
+        >>> with HMMFile(path) as f:
         ...     hmm = f.read()
         >>> hmm.name, hmm.M
-        (b'LuxC', 400)
-        >>> with HMMFile(DATA + "/hmms/db/RREFam.hmm") as f:
+        (b'synfam0000', 60)
+        >>> hmmer.hmmpress(hmms, path)
+        2
+        >>> with HMMFile(path) as f:
         ...     f.is_pressed()
         True
     """

@@ -17,7 +17,7 @@ residues: ``lnP += log(res_count / max_length)``
 hits from overlapping windows are removed keeping the best E-value
 (``p7_tophits_RemoveDuplicates``, ``plan7.pyx:7184``).
 
-TPU-first note: window x strand cascade stages batch the same way the
+Device note: window x strand cascade stages batch the same way the
 standard engine batches target sequences; the sequential driver here is
 the oracle the batched path must agree with.
 """
@@ -39,13 +39,10 @@ from .results import TopHits, Hit, Domain, F_REPORTED, F_INCLUDED
 from .pipeline import Pipeline, LOG2, F3_SLACK
 from . import domaindef as dd
 from ..ops import reference as ref
-from ..ops import native
+from ..ops import kernels, native
 from ..ops.quantize import quantize_msv
 
 __all__ = ["LongTargetsPipeline", "compute_max_length"]
-
-#: one-shot flag so an unavailable device path warns once, not per batch
-_DEVICE_GATE_WARNED = False
 
 DEFAULT_LONG_F1 = 0.02
 DEFAULT_LONG_F2 = 3e-3
@@ -393,42 +390,20 @@ class LongTargetsPipeline(Pipeline):
         kernel (uint8-quantized DP is integer-exact on device, so the gate
         is identical to the host path) and the f32 device Viterbi/Forward
         run as margin-checked prefilters in front of the exact host
-        kernels -- the TPU analog of the reference's per-window SIMD
-        filters (SURVEY 2.6 sequence-length parallelism).  Small batches
-        take the host path directly."""
+        kernels -- the batched analog of the reference's per-window SIMD
+        filters (SURVEY 2.6 sequence-length parallelism).  Small batches,
+        and platforms where the batched gates do not pay
+        (:func:`ops.kernels.use_device_gates`), take the host path."""
         ev = prof.evparam.astype(np.float64)
         bg = self.background
 
         n = len(pend)
-        usc_batch = None
-        vit_pre = fwd_pre = None
+        usc_batch = vit_pre = fwd_pre = None
         dev_env = _os.environ.get("PYHMMER_TPU_NHMMER_DEVICE", "auto")
-        use_device = dev_env == "force"
-        if not use_device and dev_env != "0" and n >= 4:
-            # the batched gates only pay on an accelerator: the XLA
-            # fallback kernels on CPU are far slower than the native
-            # host cascade
-            import jax
-            use_device = jax.default_backend() not in ("cpu",)
-        if use_device:
-            if dev_env == "force":
-                # forced (tests/CI): let kernel bugs surface instead of
-                # silently falling back to the host path
-                usc_batch, vit_pre, fwd_pre = self._device_gates(prof, pend)
-            else:
-                try:
-                    usc_batch, vit_pre, fwd_pre = self._device_gates(
-                        prof, pend)
-                except Exception as exc:   # device unavailable: host gates
-                    global _DEVICE_GATE_WARNED
-                    if not _DEVICE_GATE_WARNED:
-                        _DEVICE_GATE_WARNED = True
-                        import warnings
-                        warnings.warn(
-                            "nhmmer device gating failed (%s: %s); "
-                            "falling back to the host filter path"
-                            % (type(exc).__name__, exc), RuntimeWarning)
-                    usc_batch = None
+        if dev_env == "force" or (dev_env != "0" and n >= 4
+                                  and kernels.use_device_gates(
+                                      kernels.platform_of())):
+            usc_batch, vit_pre, fwd_pre = self._device_gates(prof, pend)
 
         for j, job in enumerate(pend):
             sub = job["sub"]
@@ -517,10 +492,10 @@ class LongTargetsPipeline(Pipeline):
 
     def _device_gates(self, prof: Profile, pend: List[dict]):
         """Batched device filter scores for a set of subwindows: exact
-        quantized MSV [n] plus f32 Viterbi/Forward prefilter scores [n]
-        (Pallas kernels on TPU, the XLA fallback kernels elsewhere)."""
+        quantized MSV [n] (the kernel :mod:`ops.kernels` picks) plus f32
+        Viterbi/Forward prefilter scores [n] from the XLA scans."""
         from ..ops import batch as B
-        import jax
+        from ..engine import _fetch_all, _pad_b
 
         key = getattr(prof, "_lt_device_cache", None)
         if key is None or key[0] != prof.M:
@@ -529,90 +504,30 @@ class LongTargetsPipeline(Pipeline):
             prof._lt_device_cache = (prof.M, pb)
         else:
             pb = key[1]
-        use_pallas = (jax.default_backend() not in ("cpu",)
-                      or _os.environ.get("PYHMMER_TPU_PALLAS_INTERPRET",
-                                         "0") == "1")
 
-        lens = np.array([len(j["sub"]) for j in pend], dtype=np.int64)
-        # pad Lmax to a multiple of 64 so the strip packing (L % R == 0)
-        # and lane-tile bounds divide evenly for any subwindow mix
-        Lmax = B.round_up(int(lens.max()), 64)
-        fill = self.alphabet.nonresidue_code
-        codes = np.full((len(pend), Lmax), fill, dtype=np.uint8)
+        n = len(pend)
+        lens = np.zeros(_pad_b(n), dtype=np.int64)
+        lens[:n] = [len(j["sub"]) for j in pend]
+        # power-of-two widths and the engine's batch ladder bound the
+        # number of compiled shapes across subwindow mixes
+        Lmax = 1 << max(6, int(lens.max() - 1).bit_length())
+        codes = np.full((len(lens), Lmax), self.alphabet.nonresidue_code,
+                        dtype=np.uint8)
         for r, j in enumerate(pend):
             codes[r, : lens[r]] = j["sub"]
-        order = np.argsort(lens, kind="stable")
-        codes = codes[order]
-        slens = lens[order]
-        dev = B.SeqDevice(codes, slens)
-
-        if use_pallas:
-            from ..ops.msv_pallas import msv_scores_pallas
-            usc = msv_scores_pallas(pb, codes, slens, dev)[0]
-        else:
-            usc = B.msv_scores(pb, codes, slens, dev)[0]
-
-        from ..engine import (_gather_survivors, _gather_survivors_strips,
-                              _fetch_all)
-        import jax.numpy as jnp
-        ridx = np.full(dev.Bpad, -1, dtype=np.int32)
-        ridx[: dev.B] = np.arange(dev.B)
-        if use_pallas:
-            from ..ops import vit_pallas as VP, fwd_pallas as FP
-            from ..ops.msv_pallas import _lane_tile
-            # largest power-of-two lane tile <= 256 that divides Bpad:
-            # SeqDevice pads B to a multiple of 128, so Bpad can be 384,
-            # 640, ... where 256 does not divide and the survivor-gather
-            # reshape would fail at trace time
-            Bt = 256 if dev.Bpad % 256 == 0 else 128
-            codes_t, lens_r, lm, bnd = _gather_survivors(
-                dev.codes_t, dev.lens_d, jnp.asarray(ridx), Bt)
-            tv = VP.build_vit_tensors(pb)
-            vit_d = VP._vit_pallas(lens_r, codes_t, tv["msc"], tv["isc"],
-                                   tv["tr"], lm, bnd)
-            if pb.Mp <= 768:
-                tf = FP.build_fwd_tensors2(pb)
-                Btf = _lane_tile(dev.Lmax, dev.Bpad)
-                R = FP._strip_r_fwd(tf["Mp"], Btf)
-                strips, lens2, lm2, bnd2 = _gather_survivors_strips(
-                    dev.codes_t, dev.lens_d, jnp.asarray(ridx), R, Btf)
-                fwd_d = FP._fwd_pallas2(lens2, strips, tf["ems"],
-                                        tf["eis"], tf["etr2"], tf["sdd"],
-                                        lm2, bnd2, R, Btf)
-            else:
-                # nhmmer-scale models (bmyD M=1203) blow the v2 kernel's
-                # scoped-VMEM budget; the XLA scan kernel handles them
-                from ..engine import _gather_rows_dev
-                from ..ops.batch import _forward_kernel
-                codes_g, mask, loop, move = _gather_rows_dev(
-                    dev, jnp.asarray(ridx))
-                xEj = np.float32(math.log(0.5))
-                fwd_d = _forward_kernel(
-                    codes_g, mask,
-                    *pb.device("msc", "isc", "tMM", "tIM", "tDM", "tMD",
-                               "tDD", "tBM", "tMI", "tII", "kmask"),
-                    xEj, xEj, loop, move, pb.Kp)
-            vit_s, fwd_s = _fetch_all([vit_d, fwd_d])
-        else:
-            from ..engine import _gather_rows_dev
-            from ..ops.batch import _viterbi_kernel, _forward_kernel
-            codes_g, mask, loop, move = _gather_rows_dev(
-                dev, jnp.asarray(ridx))
-            xEj = np.float32(np.log(0.5))
-            args = pb.device("msc", "isc", "tMM", "tIM", "tDM", "tMD",
-                             "tDD", "tBM", "tMI", "tII", "kmask")
-            vit_d = _viterbi_kernel(codes_g, mask, *args, xEj, xEj, loop,
-                                    move, pb.Kp)
-            fwd_d = _forward_kernel(codes_g, mask, *args, xEj, xEj, loop,
-                                    move, pb.Kp)
-            vit_s, fwd_s = _fetch_all([vit_d, fwd_d])
-
-        inv = np.empty(len(pend), dtype=np.int64)
-        inv[order] = np.arange(len(pend))
-        usc_out = np.asarray(usc, np.float64)[: dev.B][inv]
-        vit_out = np.asarray(vit_s, np.float64)[0, : dev.B][inv]
-        fwd_out = np.asarray(fwd_s, np.float64)[0, : dev.B][inv]
-        return usc_out, vit_out, fwd_out
+        dev = B.SeqDevice(codes, lens)
+        usc = B.msv_scores(pb, codes, lens, dev)[0]
+        xEj = np.float32(math.log(0.5))
+        args = pb.device("msc", "isc", "tMM", "tIM", "tDM", "tMD", "tDD",
+                         "tBM", "tMI", "tII", "kmask")
+        vit_d = B._viterbi_kernel(dev.codes, dev.mask_b, *args, xEj, xEj,
+                                  dev.loop, dev.move)
+        fwd_d = B._forward_kernel(dev.codes, dev.mask_b, *args, xEj, xEj,
+                                  dev.loop, dev.move)
+        vit_s, fwd_s = _fetch_all([vit_d, fwd_d])
+        return (np.asarray(usc, np.float64)[:n],
+                np.asarray(vit_s, np.float64)[0, :n],
+                np.asarray(fwd_s, np.float64)[0, :n])
 
     def _make_longtarget_hit(self, prof, prof_uni, sq, d, sub, sub_start,
                              window_len, win_start, orig_len, strand, seqidx,

@@ -3,7 +3,7 @@
 Mirrors ``pyhmmer.plan7.OptimizedProfile`` / ``HMMPressedFile`` /
 ``OptimizedProfileBlock`` (reference ``src/pyhmmer/plan7.pyx:4183-5123``).
 
-TPU-first note: the reference's ``P7_OPROFILE`` holds Farrar-striped SIMD
+Device note: the reference's ``P7_OPROFILE`` holds Farrar-striped SIMD
 bands; our device layout is the plain ``[Kp, M]`` cost/score tensors from
 :mod:`pyhmmer_tpu.ops.quantize` (striping is replaced by the batch
 dimension).  A pressed database's ``.h3m`` member carries the full model,

@@ -8,7 +8,7 @@ and E-value accounting.
 
 This module is the *sequential oracle* driver running on the NumPy
 reference kernels; :mod:`pyhmmer_tpu.ops.batch` provides the batched
-TPU path that executes the same cascade over ``[B]`` sequences at once
+device path that executes the same cascade over ``[B]`` sequences at once
 (the engine picks whichever backend is requested).
 """
 
@@ -68,18 +68,13 @@ class Pipeline:
 
     Example:
         >>> from pyhmmer_tpu.easel.alphabet import Alphabet
-        >>> from pyhmmer_tpu.easel import SequenceFile
-        >>> from pyhmmer_tpu.plan7 import HMMFile, Pipeline
-        >>> DATA = "/root/reference/src/pyhmmer/tests/data"
-        >>> with HMMFile(DATA + "/hmms/txt/PF02826.hmm") as f:
-        ...     hmm = f.read()
-        >>> with SequenceFile(DATA + "/seqs/938293.PRJEB85.HG003687.faa",
-        ...                   digital=True) as f:
-        ...     targets = f.read_block(sequences=300)
+        >>> from pyhmmer_tpu.plan7 import Pipeline
+        >>> from pyhmmer_tpu import synthetic
+        >>> hmms, targets = synthetic.doctest_workload()
         >>> pli = Pipeline(Alphabet.amino(), E=1e-3)
-        >>> th = pli.search_hmm(hmm, targets)
+        >>> th = pli.search_hmm(hmms[0], targets)
         >>> th.searched_sequences, len(th.reported)
-        (300, 2)
+        (48, 12)
         >>> pli.arguments()     # daemon-protocol CLI serialization
         ['-E', '0.001']
     """

@@ -54,23 +54,21 @@ reconstructed WITHOUT touching the ``.h3m`` member.
 Example (press, then iterate the pressed database):
     >>> import os, tempfile
     >>> from pyhmmer_tpu.plan7 import HMMFile
-    >>> from pyhmmer_tpu import hmmer
-    >>> DATA = "/root/reference/src/pyhmmer/tests/data"
-    >>> with HMMFile(DATA + "/hmms/txt/RREFam.hmm") as f:
-    ...     hmms = list(f)
-    >>> out = os.path.join(tempfile.mkdtemp(), "RREFam.hmm")
+    >>> from pyhmmer_tpu import hmmer, synthetic
+    >>> hmms, _ = synthetic.doctest_workload()
+    >>> out = os.path.join(tempfile.mkdtemp(), "synthetic.hmm")
     >>> with open(out, "wb") as fh:
     ...     for h in hmms:
     ...         h.write(fh)
     >>> hmmer.hmmpress(hmms, out)
-    10
+    2
     >>> f = HMMFile(out)
     >>> f.is_pressed()
     True
     >>> oms = list(f.optimized_profiles())
     >>> f.close()
     >>> len(oms), oms[0].M == hmms[0].M
-    (10, True)
+    (2, True)
 """
 
 from __future__ import annotations

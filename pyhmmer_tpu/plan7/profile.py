@@ -10,9 +10,8 @@ Mirrors ``pyhmmer.plan7.Profile`` (reference ``src/pyhmmer/plan7.pyx:
 * match emission log-odds vs background, insert scores fixed to 0,
   degenerate residues scored by background-weighted expectation
 
-The score tensors are laid out for the TPU kernels: ``msc[Kp, M+1]`` so a
-residue row gathers one contiguous ``[M+1]`` lane vector (or is produced by
-a one-hot matmul on the MXU).
+The score tensors are laid out for the device kernels: ``msc[Kp, M+1]`` so a
+residue row gathers one contiguous ``[M+1]`` vector.
 """
 
 from __future__ import annotations

@@ -181,21 +181,13 @@ class TopHits:
 
     Example:
         >>> import io
-        >>> from pyhmmer_tpu.easel import SequenceFile
-        >>> from pyhmmer_tpu.plan7 import HMMFile
-        >>> from pyhmmer_tpu import hmmer
-        >>> DATA = "/root/reference/src/pyhmmer/tests/data"
-        >>> with HMMFile(DATA + "/hmms/txt/Thioesterase.hmm") as f:
-        ...     hmm = f.read()
-        >>> with SequenceFile(DATA + "/seqs/938293.PRJEB85.HG003687.faa",
-        ...                   digital=True) as f:
-        ...     a = f.read_block(sequences=150)
-        ...     b = f.read_block(sequences=150)
-        >>> ta = next(hmmer.hmmsearch(hmm, a))
-        >>> tb = next(hmmer.hmmsearch(hmm, b))
+        >>> from pyhmmer_tpu import hmmer, synthetic
+        >>> hmms, targets = synthetic.doctest_workload()
+        >>> ta = next(hmmer.hmmsearch(hmms[1], targets[:24]))
+        >>> tb = next(hmmer.hmmsearch(hmms[1], targets[24:]))
         >>> merged = ta.merge(tb)     # sums auto-Z, re-thresholds
-        >>> merged.Z
-        300.0
+        >>> merged.Z, len(merged.reported)
+        (48.0, 8)
         >>> out = io.StringIO()
         >>> merged.write(out, format="targets")   # --tblout format
         >>> out.getvalue().startswith("#")

@@ -4,7 +4,7 @@ Usage: python _multihost_worker.py <pid> <nproc> <port> <ntargets> <out>
 
 Initializes ``jax.distributed`` against a localhost coordinator on the
 CPU platform, runs ``multihost_search`` over its residue-balanced shard
-of the bundled proteome, and writes the merged reported rows as JSON.
+of the seeded ``synthetic.small_workload(ntargets)``, and writes the merged reported rows as JSON.
 Every rank must produce the identical merged table
 (tests/test_multihost.py compares them to the single-process output).
 """
@@ -28,17 +28,9 @@ multihost.initialize(coordinator_address=f"127.0.0.1:{port}",
                      num_processes=nproc, process_id=pid)
 assert jax.process_count() == nproc, jax.process_count()
 
-from pyhmmer_tpu.plan7 import HMMFile
-from pyhmmer_tpu.easel import SequenceFile
-from pyhmmer_tpu.easel.sequence import DigitalSequenceBlock
+from pyhmmer_tpu import synthetic
 
-DATA = "/root/reference/src/pyhmmer/tests/data"
-with HMMFile(os.path.join(DATA, "hmms", "txt", "PF02826.hmm")) as f:
-    hmms = list(f)
-with SequenceFile(os.path.join(
-        DATA, "seqs", "938293.PRJEB85.HG003687.faa"), digital=True) as f:
-    full = f.read_block()
-targets = DigitalSequenceBlock(hmms[0].alphabet, list(full)[:ntargets])
+hmms, targets = synthetic.small_workload(ntargets)
 
 merged = multihost.multihost_search(hmms, targets)
 rows = []

@@ -60,14 +60,3 @@ def test_forward_close(setup):
         for bi, sq in enumerate(seqs):
             f0 = _oracle(h, bg, sq, lambda p, d: ref.forward(p, d).score)
             assert abs(f0 - fwd[pi, bi]) < 0.05
-
-
-def test_bias_filter_close(setup):
-    hmms, bg, seqs, profs, pb, codes, lengths = setup
-    fsc = B.bias_filter_scores(pb, codes, lengths)
-    for pi, (h, prof) in enumerate(zip(hmms, profs)):
-        bg.set_filter(h.M, prof.compo)
-        for bi, sq in enumerate(seqs):
-            bg.set_length(len(sq))
-            b0 = bg.filter_score(sq.sequence)
-            assert abs(b0 - fsc[pi, bi]) < 0.05

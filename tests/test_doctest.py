@@ -14,9 +14,10 @@ MODULES = [
     "pyhmmer_tpu.plan7.fitting",
     "pyhmmer_tpu.plan7.evalues",
     "pyhmmer_tpu.utils",
-    # user-facing API (round-4 verdict #9): the app layer, pipeline,
-    # results, model I/O, pressed DBs, and the daemon all carry
-    # executable examples against the bundled reference fixtures
+    "pyhmmer_tpu.synthetic",
+    # user-facing API: the app layer, pipeline, results, model I/O,
+    # pressed DBs, and the daemon all carry executable examples on the
+    # seeded workloads of pyhmmer_tpu.synthetic
     "pyhmmer_tpu.hmmer",
     "pyhmmer_tpu.plan7.pipeline",
     "pyhmmer_tpu.plan7.results",

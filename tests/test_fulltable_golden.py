@@ -17,8 +17,6 @@ from pyhmmer_tpu.plan7 import HMMFile
 from pyhmmer_tpu.easel import SequenceFile
 from pyhmmer_tpu import hmmer
 
-DATA = os.path.join(os.path.dirname(__file__), "data")
-REF = "/root/reference/src/pyhmmer/tests/data"
 
 #: Known weak extra hits admitted by the calibrated 2-state bias filter
 #: (PARITY_NOTES gap #1; recalibrated round 2: 6 extras / 0 missing is
@@ -53,11 +51,11 @@ def _parse_tbl(path):
     return rows
 
 
-def _run_and_check(hmmpath, tblpath):
+def _run_and_check(ref, hmmpath, tblpath):
     with HMMFile(hmmpath) as f:
         hmms = list(f)
     with SequenceFile(os.path.join(
-            REF, "seqs", "938293.PRJEB85.HG003687.faa"),
+            ref, "seqs", "938293.PRJEB85.HG003687.faa"),
             digital=True) as f:
         targets = f.read_block()
     golden = _parse_tbl(tblpath)
@@ -82,16 +80,16 @@ def _run_and_check(hmmpath, tblpath):
     return n_strict
 
 
-def test_fulltable_pf02826():
+def test_fulltable_pf02826(data_dir):
     n_strict = _run_and_check(
-        os.path.join(REF, "hmms", "txt", "PF02826.hmm"),
-        os.path.join(REF, "tables", "PF02826.tbl"))
+        data_dir, os.path.join(data_dir, "hmms", "txt", "PF02826.hmm"),
+        os.path.join(data_dir, "tables", "PF02826.tbl"))
     # all but the RNG-wobble rows must match score AND bias to 0.1 bits
     assert n_strict >= 19
 
 
-def test_fulltable_rrefam():
+def test_fulltable_rrefam(data_dir):
     n_strict = _run_and_check(
-        os.path.join(REF, "hmms", "txt", "RREFam.hmm"),
-        os.path.join(REF, "tables", "RREFam.tbl"))
+        data_dir, os.path.join(data_dir, "hmms", "txt", "RREFam.hmm"),
+        os.path.join(data_dir, "tables", "RREFam.tbl"))
     assert n_strict >= 8

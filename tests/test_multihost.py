@@ -10,21 +10,15 @@ process_count()==1 by construction.
 import numpy as np
 import pytest
 
-from pyhmmer_tpu.plan7 import HMMFile
-from pyhmmer_tpu.easel import SequenceFile
+from pyhmmer_tpu import synthetic
 from pyhmmer_tpu.easel.sequence import DigitalSequenceBlock
 from pyhmmer_tpu.engine import SearchEngine
 from pyhmmer_tpu.parallel import multihost
 
 
 @pytest.fixture(scope="module")
-def search_result(data_dir):
-    with HMMFile(data_dir / "hmms" / "txt" / "PF02826.hmm") as f:
-        hmms = list(f)
-    with SequenceFile(data_dir / "seqs" / "938293.PRJEB85.HG003687.faa",
-                      digital=True) as f:
-        full = f.read_block()
-    targets = DigitalSequenceBlock(hmms[0].alphabet, list(full)[:400])
+def search_result():
+    hmms, targets = synthetic.small_workload(200)
     th = SearchEngine(hmms[0].alphabet).search(hmms, targets)[0]
     return hmms, targets, th
 
@@ -88,7 +82,7 @@ def test_degenerate_single_process(search_result):
         np.arange(5, dtype=np.uint8))[0].tolist() == [0, 1, 2, 3, 4]
 
 
-def test_two_process_multihost(data_dir, tmp_path):
+def test_two_process_multihost(tmp_path):
     """The real nproc>1 branch, actually executed: two subprocesses
     initialize jax.distributed on a localhost coordinator (CPU
     platform), each searches its residue-balanced shard, the partials
@@ -100,14 +94,8 @@ def test_two_process_multihost(data_dir, tmp_path):
     import subprocess
     import sys as _sys
 
-    ntargets = 400
-    with HMMFile(data_dir / "hmms" / "txt" / "PF02826.hmm") as f:
-        hmms = list(f)
-    with SequenceFile(data_dir / "seqs" / "938293.PRJEB85.HG003687.faa",
-                      digital=True) as f:
-        full = f.read_block()
-    targets = DigitalSequenceBlock(hmms[0].alphabet,
-                                   list(full)[:ntargets])
+    ntargets = 200
+    hmms, targets = synthetic.small_workload(ntargets)
     single = SearchEngine(hmms[0].alphabet).search(hmms, targets)
     want = [[h.name.decode(), round(h.score, 9), round(h.evalue, 12),
              h.included] for h in single[0].reported]

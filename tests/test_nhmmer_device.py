@@ -1,43 +1,28 @@
-"""CI coverage for the nhmmer device gating path.
+"""nhmmer's batched device gates (``LongTargetsPipeline._device_gates``)
+on seeded inputs.
 
-The device gates (``LongTargetsPipeline._device_gates``) normally run only
-on a real accelerator; this file forces them through the Pallas
-interpreter (``PYHMMER_TPU_NHMMER_DEVICE=force`` +
-``PYHMMER_TPU_PALLAS_INTERPRET=1``) so the gate code in
-``plan7/longtargets.py`` runs in CI -- including the >256-subwindow
-batches whose ``Bpad = 384`` lane padding used to break the survivor
-gather (advisor finding, round 3).
-
-Also validates the f32 prefilter margin empirically: the device
+On the CPU the gates run only when forced (``PYHMMER_TPU_NHMMER_DEVICE=
+force``); they then take the XLA scans, so the gate code in
+``plan7/longtargets.py`` runs here, including batches whose size is not a
+power of two.  Also validates the f32 prefilter margin: the device
 Viterbi/Forward scores must sit far inside ``DEVICE_GATE_MARGIN`` of the
 exact host kernels, otherwise the margin scheme could silently drop true
 hits.
 """
-import os
-import sys
-
 import numpy as np
 import pytest
 
-os.environ["PYHMMER_TPU_PALLAS_INTERPRET"] = "1"
-for _m in ("pyhmmer_tpu.ops.msv_pallas", "pyhmmer_tpu.ops.fwd_pallas",
-           "pyhmmer_tpu.ops.vit_pallas"):
-    sys.modules.pop(_m, None)
-
-from pyhmmer_tpu.plan7 import HMMFile
-from pyhmmer_tpu.plan7.background import Background
+from pyhmmer_tpu import synthetic
 from pyhmmer_tpu.plan7.profile import Profile
 from pyhmmer_tpu.plan7.longtargets import LongTargetsPipeline
-from pyhmmer_tpu.easel import SequenceFile
-from pyhmmer_tpu.easel.sequence import DigitalSequence, DigitalSequenceBlock
 from pyhmmer_tpu.ops import native, reference as refops
 from pyhmmer_tpu.ops.quantize import quantize_msv
 
 
 @pytest.fixture(scope="module")
-def bmyd(data_dir):
-    with HMMFile(data_dir / "hmms" / "txt" / "bmyD.hmm") as f:
-        return f.read()
+def dna():
+    return synthetic.dna_workload(genome_len=120_000, M=120, copies=4,
+                                  seed=3)
 
 
 def _make_pend(alphabet, rng, n, lmin=40, lmax=220):
@@ -50,16 +35,16 @@ def _make_pend(alphabet, rng, n, lmin=40, lmax=220):
     return pend
 
 
-def test_device_gates_bpad_384(bmyd):
-    """300 subwindows pad to Bpad=384 (not a multiple of 256): the
-    survivor-gather lane tile must divide it.  MSV must be
+def test_device_gates_exact_msv_and_margin(dna):
+    """300 subwindows (padded up the batch ladder): MSV must be
     integer-exact vs the native host kernel; the f32 Viterbi/Forward
     prefilter scores must sit well inside DEVICE_GATE_MARGIN of the
     exact host scores."""
-    alphabet = bmyd.alphabet
+    hmm, _ = dna
+    alphabet = hmm.alphabet
     pli = LongTargetsPipeline(alphabet)
-    prof = Profile(bmyd.M, alphabet).configure(
-        bmyd, pli.background, 400, multihit=True)
+    prof = Profile(hmm.M, alphabet).configure(
+        hmm, pli.background, 400, multihit=True)
     rng = np.random.default_rng(11)
     pend = _make_pend(alphabet, rng, 300)
 
@@ -76,40 +61,36 @@ def test_device_gates_bpad_384(bmyd):
             u_host = refops.msv_score_quantized(prof, sub)
         assert usc[j] == pytest.approx(u_host, abs=1e-9), j
         prof.reconfig_length(len(sub))
-        v_host = native.viterbi_score(prof, sub)
-        if v_host is None:
-            v_host = refops.viterbi_score(prof, sub)
+        v_host = refops.viterbi_score(prof, sub)
         f_host = refops.forward(prof, sub).score
         worst_v = max(worst_v, abs(vit[j] - v_host))
         worst_f = max(worst_f, abs(fwd[j] - f_host))
-    # empirical validation of the margin: f32 error must be far below it
     assert worst_v < 0.05 * margin, worst_v
     assert worst_f < 0.05 * margin, worst_f
 
 
-def test_nhmmer_forced_device_hit_parity(data_dir, bmyd, monkeypatch):
-    """End-to-end: a genome slice searched with the device gates forced
-    on (interpret mode) reports exactly the same hits as the host path.
-    The slice covers the two golden bmyD hits near 313-315 kb."""
-    with SequenceFile(
-            data_dir / "seqs" / "1390.SAMEA104415756.OFHT01000022.fna",
-            digital=True, alphabet=bmyd.alphabet) as f:
-        genome = f.read_block()
-    lo, hi = 308000, 320000
-    sl = DigitalSequence(bmyd.alphabet, name=b"slice",
-                         sequence=genome[0].sequence[lo:hi])
-    block = DigitalSequenceBlock(bmyd.alphabet, [sl])
+def test_nhmmer_forced_device_hit_parity(dna, monkeypatch):
+    """End-to-end: the seeded genome searched with the device gates forced
+    on reports exactly the same hits as the host path, on both strands."""
+    hmm, genome = dna
 
     def run():
-        pli = LongTargetsPipeline(bmyd.alphabet)
-        return pli.search_hmm(bmyd, block)
+        return LongTargetsPipeline(hmm.alphabet).search_hmm(hmm, genome)
 
     monkeypatch.setenv("PYHMMER_TPU_NHMMER_DEVICE", "0")
     host_hits = run()
     monkeypatch.setenv("PYHMMER_TPU_NHMMER_DEVICE", "force")
+    calls = []
+    orig = LongTargetsPipeline._device_gates
+    monkeypatch.setattr(LongTargetsPipeline, "_device_gates",
+                        lambda self, p, pend: calls.append(len(pend))
+                        or orig(self, p, pend))
     dev_hits = run()
 
     key = lambda h: (h.name, h.best_domain.ali_from, h.best_domain.ali_to,
                      round(h.score, 6))
+    assert calls, "the device gates did not run"
     assert sorted(map(key, dev_hits)) == sorted(map(key, host_hits))
-    assert len(host_hits) >= 1           # the slice does contain hits
+    strands = {h.best_domain.ali_from < h.best_domain.ali_to
+               for h in host_hits.reported}
+    assert len(host_hits.reported) >= 2 and strands == {True, False}
